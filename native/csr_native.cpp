@@ -1,6 +1,6 @@
 // Native runtime components (SURVEY.md §2.9 note: the reference has no
 // first-party native code — all of its native speed lived in Chainer/CuPy.
-// Here the host-side hot paths that stay off the TPU get C++ equivalents:
+// Here the host-side hot paths that stay off the device get C++ equivalents:
 // eval-time edit distance (O(T·U) per utterance, called for every dev
 // utterance) and WAV PCM decoding for the data-loader thread.)
 //

@@ -10,13 +10,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.decode.greedy import greedy_decode
-from chainer_speech_recognition_tpu.decode.streaming import stream_geometry
-from chainer_speech_recognition_tpu.models.attention import rope
-from chainer_speech_recognition_tpu.models.presets import build_model
-from chainer_speech_recognition_tpu.parallel.mesh import make_mesh, shard_batch
-from chainer_speech_recognition_tpu.train.step import (make_eval_step,
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.decode.greedy import greedy_decode
+from chainer_speech_recognition.decode.streaming import stream_geometry
+from chainer_speech_recognition.models.attention import rope
+from chainer_speech_recognition.models.presets import build_model
+from chainer_speech_recognition.parallel.mesh import make_mesh, shard_batch
+from chainer_speech_recognition.train.step import (make_eval_step,
                                                        make_train_step)
 
 from test_train import _fixed_batch, _init

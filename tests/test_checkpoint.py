@@ -10,16 +10,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.data.synthetic import make_batch
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features
-from chainer_speech_recognition_tpu.models.presets import build_model
-from chainer_speech_recognition_tpu.parallel.mesh import make_mesh, shard_batch
-from chainer_speech_recognition_tpu.train.checkpoint import (
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.data.synthetic import make_batch
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features
+from chainer_speech_recognition.models.presets import build_model
+from chainer_speech_recognition.parallel.mesh import make_mesh, shard_batch
+from chainer_speech_recognition.train.checkpoint import (
     latest_checkpoint, list_checkpoints, load_config, restore_checkpoint,
     save_checkpoint)
-from chainer_speech_recognition_tpu.train.state import init_state
-from chainer_speech_recognition_tpu.train.step import make_train_step
+from chainer_speech_recognition.train.state import init_state
+from chainer_speech_recognition.train.step import make_train_step
 
 
 def _setup(tmp_path):
@@ -84,7 +84,7 @@ def test_keep_last_n(tmp_path):
         state = state.replace(step=jnp.asarray(k, jnp.int32))
         save_checkpoint(cfg.train.checkpoint_dir, state, cfg, keep=2)
     kept = list_checkpoints(cfg.train.checkpoint_dir)
-    assert kept == ["step_00000003.msgpack", "step_00000004.msgpack"]
+    assert kept == ["step_00000003.npz", "step_00000004.npz"]
 
 
 @pytest.mark.slow
@@ -133,7 +133,7 @@ def test_wide_step_checkpoints_listed_and_pruned(tmp_path):
     names = list_checkpoints(d)
     steps = [int(n.split("_")[1].split(".")[0]) for n in names]
     assert steps == sorted(steps) and len(steps) == 3
-    assert latest_checkpoint(d).endswith("step_100000000.msgpack")
+    assert latest_checkpoint(d).endswith("step_100000000.npz")
     # prune keeps the NUMERICALLY newest
     save_checkpoint(d, state.replace(step=jnp.asarray(7, jnp.uint32)),
                     cfg, keep=2)
@@ -151,36 +151,67 @@ def test_keep_zero_rejected(tmp_path):
 
 
 def test_qkv_migration_restores_old_mhsa_layout():
-    """Checkpoints written before the round-4 QKV fusion (separate q/k/v
-    Dense params) must keep loading: the loader concatenates them into
-    the fused qkv layout — exactly matching the fused layer's slicing —
-    anywhere in the tree (params AND optimizer moments)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from flax.serialization import from_state_dict, to_state_dict
-
-    from chainer_speech_recognition_tpu.models.attention import _MHSA
-    from chainer_speech_recognition_tpu.train.checkpoint import (
-        _migrate_state_dict)
+    """Checkpoints written before the QKV fusion (separate q/k/v Dense
+    params) must keep loading: the loader concatenates them into the fused
+    qkv layout — exactly matching the fused layer's slicing — anywhere in
+    the tree (params AND optimizer moments)."""
+    from chainer_speech_recognition.models.attention import _MHSA
+    from chainer_speech_recognition.train.checkpoint import (
+        _flat_leaves, _migrate_state_dict, _nest, _unnest)
 
     B, T, d, h = 2, 8, 8, 2
     x = jnp.asarray(np.random.default_rng(0).standard_normal((B, T, d)),
                     jnp.float32)
     lens = jnp.asarray([8, 5])
     mask = (jnp.arange(T)[None, :] < lens[:, None])
-    m = _MHSA(heads=h, dtype=jnp.float32, impl="einsum")
-    params = m.init(jax.random.key(0), x, mask, lengths=lens)
-    want = m.apply(params, x, mask, lengths=lens)
+    m = _MHSA(heads=h, dtype=jnp.float32)
+    params = m.init(jax.random.key(0), x, mask)
+    want = m.apply(params, x, mask)
 
     # fabricate the OLD layout: split the fused kernel/bias back into q/k/v
-    sd = to_state_dict(params)
+    sd = _nest(_flat_leaves(params))
     fused = sd["params"].pop("qkv")
     for i, name in enumerate(("q", "k", "v")):
         sd["params"][name] = {
             "kernel": np.asarray(fused["kernel"][:, i * d:(i + 1) * d]),
             "bias": np.asarray(fused["bias"][i * d:(i + 1) * d])}
-    migrated = _migrate_state_dict(sd, to_state_dict(params))
-    restored = from_state_dict(params, migrated)
-    got = m.apply(restored, x, mask, lengths=lens)
+    migrated = _migrate_state_dict(sd, _nest(_flat_leaves(params)))
+    restored = _nest({k: jnp.asarray(v)
+                      for k, v in _unnest(migrated).items()})
+    got = m.apply(restored, x, mask)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_npz_round_trip_keeps_uint32_rng_and_step(tmp_path):
+    """The .npz format stores each leaf under its tree path with its own
+    dtype: the uint32 PRNG key data, a uint32 step and the float params
+    come back with identical dtypes, shapes and bits."""
+    cfg, model, state, _ = _setup(tmp_path)
+    state = state.replace(step=jnp.asarray(12345, jnp.uint32))
+    assert np.asarray(state.rng).dtype == np.uint32
+    path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg)
+    with np.load(path) as z:
+        assert "step" in z.files and "rng" in z.files
+        assert any(k.startswith("params/params/") for k in z.files)
+        assert z["step"].dtype == np.uint32
+    restored = restore_checkpoint(path, jax.tree.map(jnp.zeros_like, state))
+    for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+def test_restore_rejects_tree_mismatch(tmp_path):
+    """A checkpoint of another model (a leaf missing, extra, or of another
+    shape) fails loudly instead of restoring a half-filled state."""
+    cfg, model, state, _ = _setup(tmp_path)
+    path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg)
+    other = state.replace(params={"params": {
+        **state.params["params"],
+        "output": {"kernel": jnp.zeros((3, 3)), "bias": jnp.zeros((3,))}}})
+    with pytest.raises(ValueError, match="output"):
+        restore_checkpoint(path, other)
+    extra = state.replace(params={"params": {
+        **state.params["params"], "extra": {"kernel": jnp.zeros((2,))}}})
+    with pytest.raises(ValueError, match="missing"):
+        restore_checkpoint(path, extra)

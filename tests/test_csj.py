@@ -4,16 +4,16 @@
 import numpy as np
 import pytest
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.config import BucketConfig
-from chainer_speech_recognition_tpu.data.corpus import (
+from chainer_speech_recognition import constants as C
+from chainer_speech_recognition.config import BucketConfig
+from chainer_speech_recognition.data.corpus import (
     build_vocab, load_signal, normalize_texts, scan_kaldi_style)
-from chainer_speech_recognition_tpu.data.jptext import (
+from chainer_speech_recognition.data.jptext import (
     hira_to_kata, kata_to_hira, normalize)
-from chainer_speech_recognition_tpu.data.packed import (
+from chainer_speech_recognition.data.packed import (
     PackedBatchLoader, PackedCorpus, pack_corpus)
-from chainer_speech_recognition_tpu.data.sampler import BatchLoader
-from chainer_speech_recognition_tpu.utils.wav import read_wav, write_wav
+from chainer_speech_recognition.data.sampler import BatchLoader
+from chainer_speech_recognition.utils.wav import read_wav, write_wav
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +154,7 @@ def test_large_vocab_tones_stay_inside_mel_band():
     """Every synthesizable symbol must live inside the mel filterbank —
     the round-3 parity-corpus bug (ids >= 53 above MEL_FMAX had zero
     feature energy, an irreducible ~0.36 CER floor) must not regress."""
-    from chainer_speech_recognition_tpu.data.synthetic import tone_frequency
+    from chainer_speech_recognition.data.synthetic import tone_frequency
 
     for V in (41, 82, 200):
         freqs = [tone_frequency(k, V) for k in range(1, V)]

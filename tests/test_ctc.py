@@ -8,9 +8,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.ops.ctc_numpy import (
+from chainer_speech_recognition.ops.ctc_numpy import (
     ctc_loss_np, ctc_loss_batch_np, extend_labels)
-from chainer_speech_recognition_tpu.ops.ctc_jax import ctc_loss, mean_ctc_loss
+from chainer_speech_recognition.ops.ctc_jax import ctc_loss, mean_ctc_loss
 
 
 def _case(seed=0, B=4, T=20, V=8, L=6):
@@ -120,7 +120,7 @@ def test_fuzz_shapes_vs_optax_and_pallas():
     """Randomized shape/length fuzz: jnp scan vs optax vs Pallas (interpret)
     across 8 configurations — loss agreement at fp32 tolerances."""
     import optax
-    from chainer_speech_recognition_tpu.ops.ctc_pallas import ctc_loss_pallas
+    from chainer_speech_recognition.ops.ctc_pallas import ctc_loss_pallas
 
     rng = np.random.default_rng(123)
     for trial in range(8):
@@ -134,7 +134,8 @@ def test_fuzz_shapes_vs_optax_and_pallas():
         labels = rng.integers(1, V, (B, L))
         args = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ll))
         ours = np.asarray(ctc_loss(jnp.asarray(logits), *args))
-        pall = np.asarray(ctc_loss_pallas(jnp.asarray(logits), *args))
+        pall = np.asarray(ctc_loss_pallas(jnp.asarray(logits), *args,
+                                          interpret=True))
         np.testing.assert_allclose(pall, ours, atol=3e-4, rtol=1e-4,
                                    err_msg=f"trial {trial}")
         lpad = (np.arange(T)[None] >= tl[:, None]).astype(np.float32)

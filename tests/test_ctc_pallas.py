@@ -1,6 +1,9 @@
 """Pallas CTC kernel vs golden oracle + jnp scan — the forever differential
-test (SURVEY.md §7 hard-part 1). Runs the kernels in interpret mode on CPU;
-the same code compiles via Mosaic on TPU (exercised by train/bench)."""
+test (SURVEY.md §7 hard-part 1). Runs the Triton-route kernels in interpret
+mode on CPU; the same code compiles for the GPU (tests/test_gpu.py and
+chip_smoke.py run it there)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -8,10 +11,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.ops.ctc_jax import ctc_loss
-from chainer_speech_recognition_tpu.ops.ctc_numpy import ctc_loss_batch_np
-from chainer_speech_recognition_tpu.ops.ctc_pallas import (
-    ctc_loss_pallas, mean_ctc_loss_pallas)
+from chainer_speech_recognition.ops.ctc_jax import ctc_loss
+from chainer_speech_recognition.ops.ctc_numpy import ctc_loss_batch_np
+from chainer_speech_recognition.ops import ctc_pallas
+from chainer_speech_recognition.ops.ctc_pallas import padded_states
+
+ctc_loss_pallas = functools.partial(ctc_pallas.ctc_loss_pallas,
+                                    interpret=True)
+mean_ctc_loss_pallas = functools.partial(ctc_pallas.mean_ctc_loss_pallas,
+                                         interpret=True)
 
 
 def _case(seed=0, B=4, T=20, V=8, L=6):
@@ -44,7 +52,7 @@ def test_pallas_loss_and_grad_vs_golden(seed):
 
 @pytest.mark.slow
 def test_pallas_vs_jnp_scan_big():
-    """Larger shapes (lane padding exercised: S=49 → 128)."""
+    """Larger shapes (state padding exercised: S=49 → 64)."""
     logits, tl, ll, labels = _case(seed=3, B=11, T=50, V=30, L=24)
     args = (jnp.asarray(logits), jnp.asarray(tl), jnp.asarray(labels),
             jnp.asarray(ll))
@@ -60,8 +68,7 @@ def test_pallas_vs_jnp_scan_big():
 
 @pytest.mark.slow
 def test_pallas_multi_lane_tile_S():
-    """S > 128 exercises multi-lane-tile shifts/rolls (CSJ-scale labels).
-    Verified bitwise-equal losses on real TPU at Sp=256/384 as well."""
+    """S > 128 (CSJ-scale labels): S=141 pads to a 256-state row."""
     logits, tl, ll, labels = _case(seed=11, B=4, T=120, V=40, L=70)  # S=141
     args = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ll))
     lp = np.asarray(ctc_loss_pallas(jnp.asarray(logits), *args))
@@ -110,9 +117,10 @@ def test_pallas_time_padding_invariance():
 
 def test_pallas_overlong_lengths_match_jnp_grad():
     """logit_lengths > T (a caller's length-formula bug) must behave like
-    the jnp path in BOTH loss and gradient — the backward kernel's beta
-    init never fired for tlen > T, silently zeroing those samples' grads
-    while their loss stayed finite (max-effort kernel review)."""
+    the jnp path in BOTH loss and gradient — without the clamp the
+    backward kernel's beta init (t == tlen-1) would never fire for
+    tlen > T, silently zeroing those samples' grads while their loss
+    stayed finite."""
     logits, tl, ll, labels = _case(seed=5)
     tl = tl.copy()
     tl[1] = logits.shape[1] + 3                 # past T
@@ -123,7 +131,7 @@ def test_pallas_overlong_lengths_match_jnp_grad():
                                     jnp.asarray(ll))[0]
 
     def f_jnp(lg):
-        from chainer_speech_recognition_tpu.ops.ctc_jax import mean_ctc_loss
+        from chainer_speech_recognition.ops.ctc_jax import mean_ctc_loss
         return mean_ctc_loss(lg, jnp.asarray(jnp.minimum(tl, lg.shape[1])),
                              jnp.asarray(labels), jnp.asarray(ll))[0]
 
@@ -134,3 +142,75 @@ def test_pallas_overlong_lengths_match_jnp_grad():
     np.testing.assert_allclose(np.asarray(gp), np.asarray(gj),
                                atol=1e-5, rtol=1e-4)
     assert float(jnp.abs(gp[1]).max()) > 0.0    # the overlong sample TRAINS
+
+
+def _edge_case(name):
+    """(logits, t_len, labels, lab_len) for one named edge case."""
+    if name == "empty_labels":               # L=0 rows: all-blank path
+        logits, tl, ll, labels = _case(seed=21, B=3, T=9, V=5, L=3)
+        ll[:] = [0, 2, 0]
+    elif name == "impossible_rows":          # 2L+repeats > T: no alignment
+        logits, tl, ll, labels = _case(seed=22, B=3, T=8, V=6, L=6)
+        tl[:], ll[:] = [8, 3, 8], [6, 6, 2]
+        labels[0] = [1, 1, 1, 1, 1, 1]       # needs 11 frames, has 8
+    elif name == "tlen_over_T":
+        logits, tl, ll, labels = _case(seed=23, B=2, T=10, V=6, L=3)
+        tl[:] = [10 + 7, 4]
+    elif name == "tlen_zero":                # scan treats 0 like 1
+        logits, tl, ll, labels = _case(seed=24, B=2, T=6, V=5, L=2)
+        tl[:], ll[:] = [0, 6], [0, 2]
+    elif name == "single_frame":
+        logits, tl, ll, labels = _case(seed=25, B=2, T=4, V=4, L=1)
+        logits, tl, ll = logits[:, :1], np.asarray([1, 1]), np.asarray([0, 1])
+    elif name == "S_not_pow2_wide":          # S=67 → 128-state row
+        logits, tl, ll, labels = _case(seed=26, B=2, T=80, V=12, L=33)
+    elif name == "repeated_labels":          # allow2 off between repeats
+        logits, tl, ll, labels = _case(seed=27, B=2, T=16, V=4, L=5)
+        labels[:] = [[2, 2, 3, 3, 3], [1, 2, 1, 2, 1]]
+        ll[:] = [5, 5]
+    elif name == "ragged_B5":                # B not a power of two
+        logits, tl, ll, labels = _case(seed=28, B=5, T=13, V=7, L=4)
+    else:
+        raise KeyError(name)
+    return logits, tl, ll, labels
+
+
+@pytest.mark.parametrize("name", [
+    "empty_labels", "impossible_rows", "tlen_over_T", "tlen_zero",
+    "single_frame", "S_not_pow2_wide", "repeated_labels", "ragged_B5"])
+def test_kernel_edge_cases_vs_golden_and_scan(name):
+    """Loss and gradient of the kernel against the golden oracle (where
+    it defines the case) and the jnp scan's autodiff, per edge case."""
+    logits, tl, ll, labels = _edge_case(name)
+    T = logits.shape[1]
+    args = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ll))
+    x = jnp.asarray(logits)
+    loss_k = np.asarray(ctc_loss_pallas(x, *args))
+    tl_j = jnp.asarray(np.clip(tl, 1, T))    # the scan's own semantics
+    loss_j = np.asarray(ctc_loss(x, tl_j, *args[1:]))
+    fin = loss_j < 1e29
+    np.testing.assert_allclose(loss_k[fin], loss_j[fin], atol=2e-4,
+                               rtol=1e-5)
+    assert np.all(loss_k[~fin] > 1e29)       # impossible stays impossible
+    if name not in ("tlen_over_T", "tlen_zero"):
+        loss_g, grad_g = ctc_loss_batch_np(logits, tl, labels, ll)
+        np.testing.assert_allclose(loss_k[fin], loss_g[fin], atol=2e-4,
+                                   rtol=1e-5)
+
+    def total(f, t_len):
+        def g(lg):
+            losses = f(lg, t_len, *args[1:])
+            return jnp.sum(jnp.where(losses < 1e29, losses, 0.0))
+        return g
+
+    gk = np.asarray(jax.grad(total(ctc_loss_pallas, args[0]))(x))
+    gj = np.asarray(jax.grad(total(ctc_loss, tl_j))(x))
+    assert np.isfinite(gk).all()
+    np.testing.assert_allclose(gk, gj, atol=2e-4)
+    assert np.all(gk[~fin] == 0.0)
+
+
+def test_padded_states_power_of_two():
+    """The kernel row is a power of two of at least 32 states."""
+    assert [padded_states(s) for s in (1, 3, 31, 33, 129, 257)] == \
+        [32, 32, 32, 64, 256, 512]

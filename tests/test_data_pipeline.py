@@ -5,16 +5,16 @@ import os
 
 import numpy as np
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.config import BucketConfig
-from chainer_speech_recognition_tpu.data.buckets import (
+from chainer_speech_recognition import constants as C
+from chainer_speech_recognition.config import BucketConfig
+from chainer_speech_recognition.data.buckets import (
     assign_bucket, bucket_shapes, padding_waste)
-from chainer_speech_recognition_tpu.data.corpus import (
+from chainer_speech_recognition.data.corpus import (
     build_vocab, load_index, save_index, scan_corpus)
-from chainer_speech_recognition_tpu.data.sampler import (
+from chainer_speech_recognition.data.sampler import (
     BatchLoader, BucketSampler, Prefetcher)
-from chainer_speech_recognition_tpu.data.synthetic import make_utterance
-from chainer_speech_recognition_tpu.utils.wav import read_wav, write_wav
+from chainer_speech_recognition.data.synthetic import make_utterance
+from chainer_speech_recognition.utils.wav import read_wav, write_wav
 
 
 def _make_corpus(root, n=12, seed=0):
@@ -140,7 +140,7 @@ def test_kaldi_style_corpus(tmp_path):
         f.writelines(f"{u} {w}\n" for u, w, _ in rows)
     with open(os.path.join(root, "text"), "w", encoding="utf-8") as f:
         f.writelines(f"{u} {t}\n" for u, _, t in rows)
-    from chainer_speech_recognition_tpu.data.corpus import scan_kaldi_style
+    from chainer_speech_recognition.data.corpus import scan_kaldi_style
     utts = scan_kaldi_style(root)
     assert [u.utt_id for u in utts] == [f"utt-{i}" for i in range(4)]
     assert utts[0].num_samples == 2000 and utts[0].text == "あ"
@@ -149,7 +149,7 @@ def test_kaldi_style_corpus(tmp_path):
 
 def test_wav_resample_and_stereo_downmix(tmp_path):
     """Non-16 kHz and stereo inputs are normalized on read (r1 item 10)."""
-    from chainer_speech_recognition_tpu.utils.wav import resample_sinc
+    from chainer_speech_recognition.utils.wav import resample_sinc
     sr_in = 22050
     t = np.arange(int(sr_in * 0.12)) / sr_in
     tone = (0.5 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
@@ -177,7 +177,7 @@ def test_wav_resample_and_stereo_downmix(tmp_path):
 
 
 def test_mora_segmenter_and_multiunit_vocab():
-    from chainer_speech_recognition_tpu.vocab import Vocab, segment_mora
+    from chainer_speech_recognition.vocab import Vocab, segment_mora
     assert segment_mora("きゃく") == ["きゃ", "く"]
     assert segment_mora("ファン") == ["ファ", "ン"]
     assert segment_mora("こんにちは") == list("こんにちは")
@@ -256,7 +256,7 @@ def test_learn_bpe_units_and_roundtrip():
     merges first, the target size caps the inventory, learned vocabs
     segment deterministically via greedy longest-match, and
     decode(encode(t)) == t with strictly shorter label sequences."""
-    from chainer_speech_recognition_tpu.vocab import (
+    from chainer_speech_recognition.vocab import (
         BLANK_SYMBOL, UNK_SYMBOL, Vocab, learn_bpe)
 
     texts = ["かきかきかきすも", "かきすもすも", "かきかき"] * 5
@@ -280,7 +280,7 @@ def test_learn_bpe_units_and_roundtrip():
 def test_bpe_respects_mora_base():
     """BPE over a mora base never splits a mora: きゃ stays one unit and
     merges as a whole."""
-    from chainer_speech_recognition_tpu.vocab import learn_bpe
+    from chainer_speech_recognition.vocab import learn_bpe
 
     texts = ["きゃくきゃく", "きゃく"] * 4
     units = learn_bpe(texts, vocab_size=6, unit="mora")

@@ -5,9 +5,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.constants import PAD_LABEL_ID
-from chainer_speech_recognition_tpu.decode.greedy import greedy_decode, greedy_decode_np
-from chainer_speech_recognition_tpu.decode.metrics import CERAccumulator, edit_distance
+from chainer_speech_recognition.constants import PAD_LABEL_ID
+from chainer_speech_recognition.decode.greedy import greedy_decode, greedy_decode_np
+from chainer_speech_recognition.decode.metrics import CERAccumulator, edit_distance
 
 
 def test_greedy_matches_host_oracle():

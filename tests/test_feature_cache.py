@@ -11,18 +11,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.cli import preprocess as preprocess_cli
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.data.corpus import load_index
-from chainer_speech_recognition_tpu.data.sampler import BatchLoader, BucketSampler
-from chainer_speech_recognition_tpu.data.synthetic import make_utterance
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features
-from chainer_speech_recognition_tpu.models.presets import build_model
-from chainer_speech_recognition_tpu.parallel.mesh import make_mesh, shard_batch
-from chainer_speech_recognition_tpu.train.state import init_state
-from chainer_speech_recognition_tpu.train.step import make_train_step
-from chainer_speech_recognition_tpu.utils.wav import write_wav
-from chainer_speech_recognition_tpu.vocab import Vocab
+from chainer_speech_recognition.cli import preprocess as preprocess_cli
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.data.corpus import load_index
+from chainer_speech_recognition.data.sampler import BatchLoader, BucketSampler
+from chainer_speech_recognition.data.synthetic import make_utterance
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features
+from chainer_speech_recognition.models.presets import build_model
+from chainer_speech_recognition.parallel.mesh import make_mesh, shard_batch
+from chainer_speech_recognition.train.state import init_state
+from chainer_speech_recognition.train.step import make_train_step
+from chainer_speech_recognition.utils.wav import write_wav
+from chainer_speech_recognition.vocab import Vocab
 
 
 def _make_corpus(root, n=16):

@@ -8,8 +8,8 @@ import os
 
 import numpy as np
 
-from chainer_speech_recognition_tpu.frontend.golden_np import features
-from chainer_speech_recognition_tpu.ops.ctc_numpy import ctc_loss_batch_np
+from chainer_speech_recognition.frontend.golden_np import features
+from chainer_speech_recognition.ops.ctc_numpy import ctc_loss_batch_np
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "golden.npz")
 

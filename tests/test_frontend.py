@@ -11,9 +11,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.frontend import golden_np as g
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features, frame_lengths
+from chainer_speech_recognition import constants as C
+from chainer_speech_recognition.frontend import golden_np as g
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features, frame_lengths
 
 
 def _signals(seed=0, lens=(16000, 12345, 8000, 2000)):

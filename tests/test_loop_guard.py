@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.data.corpus import Utterance
-from chainer_speech_recognition_tpu.train.loop import train
-from chainer_speech_recognition_tpu.vocab import Vocab
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.data.corpus import Utterance
+from chainer_speech_recognition.train.loop import train
+from chainer_speech_recognition.vocab import Vocab
 
 
 def test_untrainable_corpus_raises(tmp_path):
@@ -59,8 +59,8 @@ def test_sigterm_graceful_checkpoint(tmp_path):
     import sys
     import time
 
-    from chainer_speech_recognition_tpu.data.synthetic import make_utterance
-    from chainer_speech_recognition_tpu.utils.wav import write_wav
+    from chainer_speech_recognition.data.synthetic import make_utterance
+    from chainer_speech_recognition.utils.wav import write_wav
 
     corpus = tmp_path / "corpus"
     os.makedirs(corpus)
@@ -78,14 +78,14 @@ def test_sigterm_graceful_checkpoint(tmp_path):
         (corpus / f"u{i:02d}.txt").write_text(
             "".join(kana[k - 1] for k in ids))
 
-    from chainer_speech_recognition_tpu.cli import preprocess as pre_cli
+    from chainer_speech_recognition.cli import preprocess as pre_cli
     pre_cli.main(["--corpus", str(corpus), "--out", str(tmp_path / "prep")])
 
     metrics = tmp_path / "m.jsonl"
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     proc = subprocess.Popen(
-        [sys.executable, "-m", "chainer_speech_recognition_tpu.cli.train",
+        [sys.executable, "-m", "chainer_speech_recognition.cli.train",
          "--data-dir", str(tmp_path / "prep"),
          "--preset", "tiny_conv",
          "--ckpt-dir", str(tmp_path / "ck"),
@@ -119,7 +119,7 @@ def test_sigterm_graceful_checkpoint(tmp_path):
     assert stops and stops[-1]["signum"] == int(signal.SIGTERM)
     stop_step = stops[-1]["step"]
     assert stop_step < 100000
-    cks = sorted((tmp_path / "ck").glob("step_*.msgpack"))
+    cks = sorted((tmp_path / "ck").glob("step_*.npz"))
     assert cks, "no checkpoint written on SIGTERM"
     assert int(cks[-1].stem.split("_")[1]) == stop_step
 
@@ -127,8 +127,8 @@ def test_sigterm_graceful_checkpoint(tmp_path):
 def test_use_cache_conflicts_with_device_modes():
     """features.use_cache + an explicit device_cache/rotating data_mode is
     contradictory — must raise, not silently stream (review finding)."""
-    from chainer_speech_recognition_tpu.data.sampler import BucketSampler
-    from chainer_speech_recognition_tpu.train.loop import _resolve_data_mode
+    from chainer_speech_recognition.data.sampler import BucketSampler
+    from chainer_speech_recognition.train.loop import _resolve_data_mode
 
     utts = [Utterance(f"u{i}", "/x.wav", "あい", 16000) for i in range(4)]
     cfg = preset_config("tiny_conv").override({

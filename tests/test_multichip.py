@@ -1,8 +1,8 @@
 """Guard for the driver's multichip dry-run path: one full shard_map DP
 train step on the 8 fake CPU devices (SURVEY.md §4.3; __graft_entry__),
-plus the Pallas-stack-under-mesh equality check (VERDICT.md r1 item 5:
-config 5 on real hardware runs Pallas kernels INSIDE shard_map — interpret
-mode exercises that exact composition on the fake mesh)."""
+plus the Pallas-CTC-under-mesh equality check (config 5 on the GPU runs
+the CTC kernel INSIDE shard_map — interpret mode exercises that exact
+composition on the fake mesh)."""
 
 import os
 import sys
@@ -23,29 +23,26 @@ def test_dryrun_multichip_8():
 
 @pytest.mark.slow
 def test_pallas_stack_under_mesh_matches_reference_stack():
-    """frontend/rnn/ctc = pallas inside the 8-device shard_map train step
-    must reproduce the jnp/scan stack's loss and parameter update."""
-    from chainer_speech_recognition_tpu.config import preset_config
-    from chainer_speech_recognition_tpu.data.synthetic import make_batch
-    from chainer_speech_recognition_tpu.frontend.jnp_frontend import (
+    """ctc = pallas (interpret mode on the CPU backend) inside the 8-device
+    shard_map train step must reproduce the jnp scan's loss and parameter
+    update."""
+    from chainer_speech_recognition.config import preset_config
+    from chainer_speech_recognition.data.synthetic import make_batch
+    from chainer_speech_recognition.frontend.jnp_frontend import (
         batch_features)
-    from chainer_speech_recognition_tpu.models.presets import build_model
-    from chainer_speech_recognition_tpu.parallel.mesh import (
+    from chainer_speech_recognition.models.presets import build_model
+    from chainer_speech_recognition.parallel.mesh import (
         make_mesh, shard_batch)
-    from chainer_speech_recognition_tpu.train.state import init_state
-    from chainer_speech_recognition_tpu.train.step import make_train_step
+    from chainer_speech_recognition.train.state import init_state
+    from chainer_speech_recognition.train.step import make_train_step
 
     base = preset_config("bilstm_deep").override({
         "model.vocab_size": 12, "model.compute_dtype": "float32",
         "model.rnn_layers": 2, "model.rnn_hidden": 24,
         "specaugment.enabled": False,      # rng-placement-invariant compare
     })
-    cfg_p = base.override({"model.rnn_impl": "pallas",
-                           "train.ctc_impl": "pallas",
-                           "features.frontend_impl": "pallas"})
-    cfg_j = base.override({"model.rnn_impl": "scan",
-                           "train.ctc_impl": "jnp",
-                           "features.frontend_impl": "jnp"})
+    cfg_p = base.override({"train.ctc_impl": "pallas"})
+    cfg_j = base.override({"train.ctc_impl": "jnp"})
 
     batch = make_batch(np.random.default_rng(2), batch_size=16,
                        vocab_size=12, min_len=2, max_len=4, tone_len=800)
@@ -74,15 +71,15 @@ def test_sharded_eval_matches_single_device():
     """make_sharded_eval_step over the 8-device mesh must reproduce the
     single-device eval step exactly — per-utt losses, logits and lengths
     (VERDICT r1 missing #3: eval rides the DP mesh)."""
-    from chainer_speech_recognition_tpu.config import preset_config
-    from chainer_speech_recognition_tpu.data.synthetic import make_batch
-    from chainer_speech_recognition_tpu.frontend.jnp_frontend import (
+    from chainer_speech_recognition.config import preset_config
+    from chainer_speech_recognition.data.synthetic import make_batch
+    from chainer_speech_recognition.frontend.jnp_frontend import (
         batch_features)
-    from chainer_speech_recognition_tpu.models.presets import build_model
-    from chainer_speech_recognition_tpu.parallel.mesh import (
+    from chainer_speech_recognition.models.presets import build_model
+    from chainer_speech_recognition.parallel.mesh import (
         make_mesh, shard_batch)
-    from chainer_speech_recognition_tpu.train.state import init_state
-    from chainer_speech_recognition_tpu.train.step import (
+    from chainer_speech_recognition.train.state import init_state
+    from chainer_speech_recognition.train.step import (
         make_eval_step, make_sharded_eval_step)
 
     cfg = preset_config("bigru").override({
@@ -113,11 +110,11 @@ def test_sharded_eval_matches_single_device():
 def test_sharded_beam_matches_single_device():
     """beam_decode(mesh=...) splits rows over the 8-device mesh — results
     must be identical to the single-device beam, with and without LM."""
-    from chainer_speech_recognition_tpu.config import preset_config
-    from chainer_speech_recognition_tpu.decode.beam import beam_decode
-    from chainer_speech_recognition_tpu.decode.lm import NGramLM
-    from chainer_speech_recognition_tpu.parallel.mesh import make_mesh
-    from chainer_speech_recognition_tpu.vocab import Vocab
+    from chainer_speech_recognition.config import preset_config
+    from chainer_speech_recognition.decode.beam import beam_decode
+    from chainer_speech_recognition.decode.lm import NGramLM
+    from chainer_speech_recognition.parallel.mesh import make_mesh
+    from chainer_speech_recognition.vocab import Vocab
 
     mesh = make_mesh(preset_config("bigru").parallel)   # 8 fake devices
     vocab = Vocab.build(["あいう", "ういあ", "あいあ"], add_unk=False)
@@ -140,16 +137,16 @@ def test_sharded_streaming_matches_single_device():
     """Streaming with a DP mesh: lockstep streams committed batch-sharded
     over the 8 fake devices (GSPMD partitions the chunk step) must emit
     exactly the single-device transcription — greedy and beam."""
-    from chainer_speech_recognition_tpu.config import preset_config
-    from chainer_speech_recognition_tpu.decode.streaming import (
+    from chainer_speech_recognition.config import preset_config
+    from chainer_speech_recognition.decode.streaming import (
         StreamingRecognizer)
-    from chainer_speech_recognition_tpu.models.presets import build_model
-    from chainer_speech_recognition_tpu.parallel.mesh import make_mesh
+    from chainer_speech_recognition.models.presets import build_model
+    from chainer_speech_recognition.parallel.mesh import make_mesh
 
     cfg = preset_config("bigru").override({
         "features.cmvn_mode": "causal", "model.vocab_size": 8,
         "model.compute_dtype": "float32", "model.rnn_layers": 2,
-        "model.rnn_hidden": 16, "model.rnn_impl": "scan"})
+        "model.rnn_hidden": 16})
     model = build_model(cfg.model)
     x = jnp.zeros((1, 32, 40, 3), jnp.float32)
     params = jax.jit(model.init)(jax.random.key(0), x, jnp.asarray([32]))

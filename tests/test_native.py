@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from chainer_speech_recognition_tpu.decode.metrics import (
+from chainer_speech_recognition.decode.metrics import (
     edit_distance, edit_distance_py)
-from chainer_speech_recognition_tpu.utils.native import (
+from chainer_speech_recognition.utils.native import (
     edit_distance_native, get_lib, read_wav_native)
-from chainer_speech_recognition_tpu.utils.wav import (
+from chainer_speech_recognition.utils.wav import (
     read_wav, read_wav_py, write_wav)
 
 
@@ -27,7 +27,7 @@ def test_edit_distance_strings_route_through_native():
     # first, verify the ROUTING claim in this test's name: the native
     # entry point actually answers for ord()-mapped strings (a silent
     # fallback to edit_distance_py would make the value checks vacuous)
-    from chainer_speech_recognition_tpu.utils.native import (
+    from chainer_speech_recognition.utils.native import (
         edit_distance_native, get_lib)
     if get_lib() is not None:
         assert edit_distance_native(
@@ -72,7 +72,7 @@ def test_wav_native_malformed_returns_none(tmp_path):
 def test_edit_distance_batch_differential():
     """Batched C++ kernel (ONE ctypes call per eval batch) vs per-pair
     oracle, mixed lengths including empties, strings and id lists."""
-    from chainer_speech_recognition_tpu.decode.metrics import (
+    from chainer_speech_recognition.decode.metrics import (
         edit_distance_batch)
 
     rng = np.random.default_rng(2)
@@ -90,7 +90,7 @@ def test_edit_distance_batch_differential():
 
 
 def test_cer_accumulator_batch_matches_scalar():
-    from chainer_speech_recognition_tpu.decode.metrics import CERAccumulator
+    from chainer_speech_recognition.decode.metrics import CERAccumulator
 
     rng = np.random.default_rng(3)
     pairs = [("".join(chr(97 + c) for c in rng.integers(0, 4, 12)),

@@ -15,24 +15,24 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.config import BucketConfig, preset_config
-from chainer_speech_recognition_tpu.data.corpus import build_vocab, scan_corpus
-from chainer_speech_recognition_tpu.data.device_cache import (
+from chainer_speech_recognition.config import BucketConfig, preset_config
+from chainer_speech_recognition.data.corpus import build_vocab, scan_corpus
+from chainer_speech_recognition.data.device_cache import (
     DeviceCorpusCache, estimate_bytes)
-from chainer_speech_recognition_tpu.data.packed import (
+from chainer_speech_recognition.data.packed import (
     PackedBatchLoader, PackedCorpus, pack_corpus)
-from chainer_speech_recognition_tpu.data.sampler import (
+from chainer_speech_recognition.data.sampler import (
     BatchLoader, BucketSampler)
-from chainer_speech_recognition_tpu.data.synthetic import make_utterance
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features
-from chainer_speech_recognition_tpu.models.presets import build_model
-from chainer_speech_recognition_tpu.parallel.mesh import (
+from chainer_speech_recognition.data.synthetic import make_utterance
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features
+from chainer_speech_recognition.models.presets import build_model
+from chainer_speech_recognition.parallel.mesh import (
     batch_sharding, make_mesh, shard_batch)
-from chainer_speech_recognition_tpu.train.loop import train
-from chainer_speech_recognition_tpu.train.state import init_state
-from chainer_speech_recognition_tpu.train.step import (
+from chainer_speech_recognition.train.loop import train
+from chainer_speech_recognition.train.state import init_state
+from chainer_speech_recognition.train.step import (
     make_cached_train_step, make_train_step)
-from chainer_speech_recognition_tpu.utils.wav import read_wav, write_wav
+from chainer_speech_recognition.utils.wav import read_wav, write_wav
 
 
 def _make_corpus(root, n=48, seed=0):
@@ -250,9 +250,9 @@ def test_synthesize_packed_roundtrip(tmp_path):
     """Direct-to-pack scale-corpus writer (data/synth_corpus.py): the
     CSRPACK1 output must be a valid PackedCorpus whose stored label ids
     equal vocab.encode(text), and the build must be idempotent."""
-    from chainer_speech_recognition_tpu.data.synth_corpus import (
+    from chainer_speech_recognition.data.synth_corpus import (
         synthesize_packed)
-    from chainer_speech_recognition_tpu.vocab import Vocab
+    from chainer_speech_recognition.vocab import Vocab
 
     prefix = str(tmp_path / "scale")
     info = synthesize_packed(prefix, 6, vocab_size=12, max_samples=8000,

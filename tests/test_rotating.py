@@ -7,12 +7,12 @@ import pytest
 
 import jax
 
-from chainer_speech_recognition_tpu.data.device_cache import (
+from chainer_speech_recognition.data.device_cache import (
     RotatingDeviceCache)
-from chainer_speech_recognition_tpu.data.packed import PackedBatchLoader
-from chainer_speech_recognition_tpu.data.sampler import BucketSampler
-from chainer_speech_recognition_tpu.parallel.mesh import make_mesh
-from chainer_speech_recognition_tpu.train.loop import train
+from chainer_speech_recognition.data.packed import PackedBatchLoader
+from chainer_speech_recognition.data.sampler import BucketSampler
+from chainer_speech_recognition.parallel.mesh import make_mesh
+from chainer_speech_recognition.train.loop import train
 
 from test_packed import _packed, _tiny_cfg
 
@@ -54,7 +54,7 @@ def test_rotating_features_equal_device_cache_features(tmp_path):
     it arrives via a rotating window or the full-corpus cache (same
     front-end, same chunking) — guards against window assembly reordering
     or re-normalizing rows."""
-    from chainer_speech_recognition_tpu.data.device_cache import (
+    from chainer_speech_recognition.data.device_cache import (
         DeviceCorpusCache)
 
     utts, vocab, pc = _packed(tmp_path, n=24)
@@ -163,7 +163,7 @@ def test_train_rotating_mode_and_exact_resume(tmp_path):
 
 
 def test_auto_mode_picks_rotating_when_over_budget(tmp_path):
-    from chainer_speech_recognition_tpu.train.loop import _resolve_data_mode
+    from chainer_speech_recognition.train.loop import _resolve_data_mode
 
     utts, vocab, pc = _packed(tmp_path, n=48)
     cfg = _tiny_cfg(len(vocab))
@@ -177,8 +177,8 @@ def test_budget_is_per_chip(tmp_path):
     """device_cache_budget_gb is PER-CHIP (VERDICT r2 weak #2): the cache
     is row-sharded, so an 8-device mesh must admit ~8x the corpus that a
     single chip would before falling back to rotating."""
-    from chainer_speech_recognition_tpu.data.device_cache import estimate_bytes
-    from chainer_speech_recognition_tpu.train.loop import _resolve_data_mode
+    from chainer_speech_recognition.data.device_cache import estimate_bytes
+    from chainer_speech_recognition.train.loop import _resolve_data_mode
 
     utts, vocab, pc = _packed(tmp_path, n=48)
     cfg = _tiny_cfg(len(vocab))

@@ -16,12 +16,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.decode.greedy import greedy_decode
-from chainer_speech_recognition_tpu.decode.streaming import (
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.decode.greedy import greedy_decode
+from chainer_speech_recognition.decode.streaming import (
     StreamingRecognizer, stream_geometry)
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features
-from chainer_speech_recognition_tpu.models.presets import build_model
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features
+from chainer_speech_recognition.models.presets import build_model
 
 
 def _setup(name, *, seed=0, cmvn_mode="causal", cmvn=True, **model_over):
@@ -97,7 +97,7 @@ def test_birnn_full_lookahead_exact(cell):
     are emitted) and the backward scan sees the true end."""
     cfg, model, params = _setup(
         "bigru" if cell == "gru" else "bilstm_deep",
-        rnn_type=cell, rnn_layers=2, rnn_hidden=16, rnn_impl="scan")
+        rnn_type=cell, rnn_layers=2, rnn_hidden=16)
     ns = [8000, 7040]
     pcm = _pcm((2, max(ns)), seed=4)
     pcm[1, ns[1]:] = 0.0
@@ -188,7 +188,7 @@ def test_decode_lockstep_partial_batch_order():
     --streaming): a final partial batch pads with row 0's signal, reads
     each unique item exactly once, and yields results keyed by the
     caller's (length-sorted) order — equal to per-item offline decode."""
-    from chainer_speech_recognition_tpu.decode.streaming import (
+    from chainer_speech_recognition.decode.streaming import (
         decode_lockstep)
 
     cfg, model, params = _setup("tiny_conv")
@@ -231,8 +231,8 @@ def test_flush_shorter_than_drained_rejected():
 
 
 def _offline_beam_ids(model, cfg, params, pcm, ns, **kw):
-    from chainer_speech_recognition_tpu.decode.beam import beam_decode
-    from chainer_speech_recognition_tpu.frontend.jnp_frontend import (
+    from chainer_speech_recognition.decode.beam import beam_decode
+    from chainer_speech_recognition.frontend.jnp_frontend import (
         batch_features)
     import jax.numpy as jnp
 
@@ -265,7 +265,7 @@ def test_streaming_beam_equals_offline_beam():
 def test_streaming_beam_lm_fusion_matches_offline():
     """Streaming beam with dense n-gram LM fusion == offline beam+LM:
     the rolled LM context ids carry across chunks exactly."""
-    from chainer_speech_recognition_tpu.decode.lm import NGramLM
+    from chainer_speech_recognition.decode.lm import NGramLM
 
     cfg, model, params = _setup("tiny_conv", seed=13)
     n = 9600
@@ -328,10 +328,10 @@ def test_endpointing_segments_and_invariance():
     bursts separated by 2 s of silence split into two segments, the
     segment ids concatenate to `emitted`, and — conv-only, CMVN off, so
     the endpoint state resets are no-ops — `emitted` matches the
-    non-endpointing run exactly. (Init seed 13 maps silence → blank.)"""
-    from chainer_speech_recognition_tpu.data.synthetic import make_utterance
+    non-endpointing run exactly. (Init seed 15 maps silence → blank.)"""
+    from chainer_speech_recognition.data.synthetic import make_utterance
 
-    cfg, model, params = _setup("tiny_conv", seed=13, cmvn=False)
+    cfg, model, params = _setup("tiny_conv", seed=15, cmvn=False)
     rng = np.random.default_rng(0)
     sig1, _ = make_utterance(rng, [1, 2, 3], tone_len=1600)
     sig2, _ = make_utterance(rng, [3, 1], tone_len=1600)
@@ -363,9 +363,9 @@ def test_endpointing_beam_segments():
     """Endpointing composes with the streaming beam: per-row beam-state
     resets at boundaries, unfinalized 1-best tails land in the closing
     segment, and segments still concatenate to `emitted`."""
-    from chainer_speech_recognition_tpu.data.synthetic import make_utterance
+    from chainer_speech_recognition.data.synthetic import make_utterance
 
-    cfg, model, params = _setup("tiny_conv", seed=13, cmvn=False)
+    cfg, model, params = _setup("tiny_conv", seed=15, cmvn=False)
     rng = np.random.default_rng(1)
     sig1, _ = make_utterance(rng, [2, 3], tone_len=1600)
     sig2, _ = make_utterance(rng, [1, 3, 2], tone_len=1600)
@@ -419,8 +419,7 @@ def test_unidirectional_zero_lookahead_exact():
     equals offline exactly at any chunk size — no backward direction, so
     the only context needed is the conv margin the window already
     carries. The zero-latency online configuration."""
-    cfg, model, params = _setup("uni_gru", seed=30, rnn_hidden=16,
-                                rnn_impl="scan")
+    cfg, model, params = _setup("uni_gru", seed=30, rnn_hidden=16)
     ns = [9600, 7040]
     pcm = _pcm((2, max(ns)), seed=31)
     pcm[1, ns[1]:] = 0.0
@@ -447,8 +446,7 @@ def test_unidirectional_streaming_beam_exact():
     """Zero-lookahead streaming BEAM on a forward-only model == offline
     beam: the full online stack (causal front-end, forward RNN carries,
     chunk-carried beam state) is exact end to end."""
-    cfg, model, params = _setup("uni_gru", seed=32, rnn_hidden=16,
-                                rnn_impl="scan")
+    cfg, model, params = _setup("uni_gru", seed=32, rnn_hidden=16)
     n = 9600
     pcm = _pcm((1, n), seed=33)
     rec = StreamingRecognizer(model, params, cfg, batch=1,
@@ -494,31 +492,6 @@ def test_streaming_fuzz_differential():
         recb.flush(num_samples=ns)
         offb = _offline_beam_ids(model, cfg, params, pcm, ns, beam=4)
         assert recb.emitted == offb, (trial, seed, chunk, right, ns)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("name,cell", [("bigru", "gru"),
-                                       ("bilstm_deep", "lstm"),
-                                       ("uni_gru", "gru")])
-def test_streaming_pallas_rnn_matches_scan(name, cell):
-    """Streaming chunks riding the Pallas stream kernels
-    (ops/rnn_pallas.birnn_pallas_stream — h0-seeded carries, mid-window
-    carry out) must transcribe exactly what the scan-path recognizer
-    does, for bidirectional GRU/LSTM and the forward-only preset."""
-    ns = [9600, 7040]
-    pcm = _pcm((2, max(ns)), seed=41)
-    pcm[1, ns[1]:] = 0.0
-
-    outs = {}
-    for impl in ("scan", "pallas"):
-        cfg, model, params = _setup(name, seed=40, rnn_layers=2,
-                                    rnn_hidden=8, rnn_impl=impl)
-        rec = StreamingRecognizer(model, params, cfg, batch=2,
-                                  chunk_frames=16, right_frames=8)
-        rec.accept(pcm, drain=False)
-        rec.flush(num_samples=ns)
-        outs[impl] = rec.emitted
-    assert outs["pallas"] == outs["scan"]
 
 
 def _setup_attn(seed=40):
@@ -594,7 +567,7 @@ def test_chunk_causal_attention_endpointing():
     per-row attention segment boundary (pre-boundary KV cache becomes
     unattendable) instead of zeroing it — segments still concatenate to
     `emitted` and the run completes."""
-    from chainer_speech_recognition_tpu.data.synthetic import make_utterance
+    from chainer_speech_recognition.data.synthetic import make_utterance
 
     cfg, model, params = _setup_attn(seed=46)
     rng = np.random.default_rng(2)

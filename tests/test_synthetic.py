@@ -4,8 +4,8 @@ not separable pure tones)."""
 
 import numpy as np
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.data.synthetic import (
+from chainer_speech_recognition import constants as C
+from chainer_speech_recognition.data.synthetic import (
     ConfusableSynth, SymbolMarkov, make_utterance)
 
 
@@ -53,7 +53,7 @@ def test_confusable_utterance_is_deterministic_and_sane():
 def test_confusable_energy_tracks_the_symbol_formants():
     """The mel-feature energy centroid of a low-F2 symbol must sit below a
     high-F2 symbol's — i.e. symbol identity is actually in the features."""
-    from chainer_speech_recognition_tpu.frontend.golden_np import features
+    from chainer_speech_recognition.frontend.golden_np import features
 
     s = ConfusableSynth(82)
     lo_id = int(np.argmin(s.f2 + s.f1)) + 1         # low-formant symbol

@@ -13,15 +13,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.data.synthetic import make_batch
-from chainer_speech_recognition_tpu.decode.greedy import greedy_decode
-from chainer_speech_recognition_tpu.frontend.jnp_frontend import batch_features
-from chainer_speech_recognition_tpu.models.presets import build_model
-from chainer_speech_recognition_tpu.ops.specaugment import apply_specaugment
-from chainer_speech_recognition_tpu.parallel.mesh import make_mesh, shard_batch
-from chainer_speech_recognition_tpu.train.state import init_state
-from chainer_speech_recognition_tpu.train.step import make_train_step, make_eval_step
+from chainer_speech_recognition.config import preset_config
+from chainer_speech_recognition.data.synthetic import make_batch
+from chainer_speech_recognition.decode.greedy import greedy_decode
+from chainer_speech_recognition.frontend.jnp_frontend import batch_features
+from chainer_speech_recognition.models.presets import build_model
+from chainer_speech_recognition.ops.specaugment import apply_specaugment
+from chainer_speech_recognition.parallel.mesh import make_mesh, shard_batch
+from chainer_speech_recognition.train.state import init_state
+from chainer_speech_recognition.train.step import make_train_step, make_eval_step
 
 
 def _cfg(**over):
@@ -130,7 +130,7 @@ def test_remainder_rows_are_masked():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     # and the loss equals the unweighted mean over ONLY the valid rows
-    from chainer_speech_recognition_tpu.train.step import make_eval_step
+    from chainer_speech_recognition.train.step import make_eval_step
     eval_step = make_eval_step(model, cfg)
     # state params were updated; recompute with the ORIGINAL params
     model2, state0 = _init(cfg, batch)
@@ -143,9 +143,9 @@ def test_remainder_rows_are_masked():
 
 
 def test_sampler_remainder_covers_every_utterance():
-    from chainer_speech_recognition_tpu.config import BucketConfig
-    from chainer_speech_recognition_tpu.data.corpus import Utterance
-    from chainer_speech_recognition_tpu.data.sampler import BucketSampler
+    from chainer_speech_recognition.config import BucketConfig
+    from chainer_speech_recognition.data.corpus import Utterance
+    from chainer_speech_recognition.data.sampler import BucketSampler
     utts = [Utterance(f"u{i}", "x.wav", "あい", 4000 + 100 * i)
             for i in range(23)]
     cfg = BucketConfig(boundaries=(64,), batch_sizes=(8,), max_label_len=8)
